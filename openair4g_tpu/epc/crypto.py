@@ -9,7 +9,7 @@ the reference ships (33.401 Annex C; UEA2/UIA2 Implementors' Test Data),
 see tests/test_crypto_33401.py.
 
 Host-side scalar code by design: NAS/RRC integrity and ciphering touch a
-few hundred bytes per procedure — there is nothing here for the TPU. The
+few hundred bytes per procedure — nothing here for the device. The
 SNOW3G S-boxes are *generated* from their algebraic definitions (AES
 S-box construction for S_R; Dickson polynomial g49 over
 GF(2^8)/x^8+x^6+x^5+x^3+1 xor 0x25 for S_Q) rather than transcribed.

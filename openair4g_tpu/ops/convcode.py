@@ -4,9 +4,9 @@ Reference parity: openair1/PHY/CODING/ccoding_byte_lte.c (ccodelte_encode,
 rate-1/3 K=7 generators {0133, 0171, 0165}) and viterbi_lte.c
 (phy_viterbi_lte_sse2 — 64-state add-compare-select with SSE metric tables).
 
-TPU-native: the 64 trellis states live on vector lanes; the ACS recursion is
+The 64 trellis states live on vector lanes; the ACS recursion is
 a `lax.scan` over time with all states updated per step (the reference packs
-8 states per __m128i — here all 64 ride one VPU vector, batched over
+8 states per __m128i — here all 64 ride one vector, batched over
 codewords). Tail-biting is handled circularly: the LLR stream is repeated
 and the middle copy's traceback is taken, avoiding any per-state init bias
 (the standard wrap-around Viterbi used by hardware decoders).
@@ -129,7 +129,8 @@ def viterbi_decode(llrs, K: int, n_wrap: int = 3):
         # predecessors of s' are 2*(s'&31)+j, so the pred-metric tensor
         # is a reshape-to-pairs + tile — no gather inside the scan
         # (round-5 perf: per-step gathers dominated the blind decode).
-        bm = jnp.einsum("bc,sjc->bsj", l3, sign)         # [B, 64, 2]
+        bm = jnp.einsum("bc,sjc->bsj", l3, sign,         # [B, 64, 2]
+                        precision=lax.Precision.HIGHEST)   # no TF32
         pairs = metric.reshape(B, 32, 2)                 # m[2i], m[2i+1]
         cand = jnp.tile(pairs, (1, 2, 1)) + bm           # [B, 64, 2]
         choice = jnp.argmax(cand, axis=-1)               # [B, 64]

@@ -2,9 +2,9 @@
 
 Reference parity: openair1/PHY/CODING/crc_byte.c (polys :53-57, byte-LUT
 crc24a/crc24b/crc16/crc8). The reference computes CRCs serially with byte
-lookup tables; on TPU we express the CRC of a K-bit message as a GF(2)
+lookup tables; here the CRC of a K-bit message is a GF(2)
 matrix-vector product — remainder_bits = (bits @ H) mod 2 with a precomputed
-[K, L] matrix H — which batches over thousands of code blocks as one MXU
+[K, L] matrix H — which batches over thousands of code blocks as one
 matmul. This is the per-iteration early-stop check inside the turbo decoder,
 so it must be cheap and batched.
 
@@ -76,10 +76,12 @@ def attach_crc_host(bits: np.ndarray, kind: str) -> np.ndarray:
 def crc_device(bits, kind: str):
     """Batched device CRC. bits [..., K] float32/int in {0,1} -> [..., L].
 
-    One f32 matmul on the MXU + mod-2; exact for K < 2^24.
+    One f32 matmul + mod-2; exact for K < 2^24.
     """
     K = bits.shape[-1]
     H = jnp.asarray(crc_matrix(K, kind), jnp.float32)
+    # default precision on purpose: the operands are 0/1, which TF32
+    # holds exactly, and the sums accumulate in float32
     s = jnp.matmul(bits.astype(jnp.float32), H, preferred_element_type=jnp.float32)
     return jnp.mod(s, 2.0)
 

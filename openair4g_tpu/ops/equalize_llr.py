@@ -1,9 +1,8 @@
-"""Fused MRC channel compensation + equalization + max-log LLR demap.
+"""MRC channel compensation + equalization + max-log LLR demap in one form.
 
 Reference parity: openair1/PHY/LTE_TRANSPORT/dlsch_demodulation.c
 (dlsch_channel_compensation :801 -> dlsch_detection_mrc :2583 -> LLR
-dispatch) — three separate SIMD passes over HBM-resident buffers in the
-reference. Here the whole inner receiver tail is ONE Pallas VMEM pass:
+dispatch), three separate SIMD passes in the reference. Here:
 
     num   = sum_a y_a * conj(h_a)          (MRC numerator)
     h2    = sum_a |h_a|^2                  (MRC gain)
@@ -11,138 +10,45 @@ reference. Here the whole inner receiver tail is ONE Pallas VMEM pass:
     llr_b = max_{l: bit_b(l)=0} metric - max_{l: bit_b(l)=1} metric
 
 The identity -(num/h2 - l)^2 * h2/n0 = -(num - l*h2)^2/(h2*n0) means the
-equalized symbol x = num/h2 and the effective noise n0/h2 never need to be
-materialized: one reciprocal per RE, everything else multiply-add-max on
-the VPU, and the [B, R] complex intermediates (x_hat, n0_eff, the [.., L]
-distance tensor of ops/llr.demap_llr) never round-trip through HBM.
-
-The XLA path (phy/equalize.mrc_equalize + ops/llr.demap_llr) remains the
-portable oracle; `mrc_llr` dispatches to the kernel on accelerators.
+equalized symbol num/h2 and the effective noise n0/h2 are never formed.
+It is elementwise work plus a max over at most 8 PAM levels, which XLA
+fuses by itself; phy/equalize.mrc_equalize followed by ops/llr.demap_llr
+is the two-stage reference it agrees with.
 """
 from __future__ import annotations
 
-import functools
-import os
-
-import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .llr import _pam_levels, demap_llr
-from ..phy.equalize import mrc_equalize
+from .llr import _pam_levels
 
-LANES = 1024
 _EPS = 1e-12
 
 
-def _make_kernel(A: int, Qm: int):
-    levels, bit_of_level = _pam_levels(Qm)
-    levels = [float(v) for v in levels]             # python scalars only —
-    bits = bit_of_level.tolist()                    # kernels can't capture
-    nb = Qm // 2                                    # array constants
-
-    def kernel(yre_ref, yim_ref, hre_ref, him_ref, out_ref):
-        # inputs are pre-scaled by 1/sqrt(n0) on the host side, which makes
-        # the metric -(num - l*h2)^2/h2 algebraically identical to
-        # -(num0 - l*h20)^2/(h20*n0) — no scalar operand needed in-kernel.
-        num_re = jnp.zeros((LANES,), jnp.float32)
-        num_im = jnp.zeros((LANES,), jnp.float32)
-        h2 = jnp.zeros((LANES,), jnp.float32)
-        for a in range(A):
-            yr, yi = yre_ref[a, :], yim_ref[a, :]
-            hr, hi = hre_ref[a, :], him_ref[a, :]
-            num_re = num_re + yr * hr + yi * hi     # y * conj(h)
-            num_im = num_im + yi * hr - yr * hi
-            h2 = h2 + hr * hr + hi * hi
-        h2 = jnp.maximum(h2, _EPS)
-        inv = 1.0 / h2
-        for axis, v in ((0, num_re), (1, num_im)):
-            metrics = [-(v - l * h2) ** 2 * inv for l in levels]
-            for b in range(nb):
-                m0 = m1 = None
-                for li, l in enumerate(levels):
-                    if bits[b][li] == 0:
-                        m0 = metrics[li] if m0 is None \
-                            else jnp.maximum(m0, metrics[li])
-                    else:
-                        m1 = metrics[li] if m1 is None \
-                            else jnp.maximum(m1, metrics[li])
-                out_ref[2 * b + axis, :] = m0 - m1
-
-    return kernel
-
-
-@functools.lru_cache(maxsize=None)
-def _build_call(A: int, Qm: int, n_tiles: int, interpret: bool = False):
-    kernel = _make_kernel(A, Qm)
-    N = n_tiles * LANES
-    in_spec = pl.BlockSpec((A, LANES), lambda i: (0, i),
-                           memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[in_spec, in_spec, in_spec, in_spec],
-        out_specs=pl.BlockSpec((Qm, LANES), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((Qm, N), jnp.float32),
-        interpret=interpret,
-    )
-
-
-def mrc_llr_pallas(y, H, n0_total, Qm: int, interpret: bool = False):
-    """y, H: [..., A] complex64; n0_total scalar or broadcastable to the
-    leading shape (per-RE noise: estimation-error weighting, SM streams).
-    Returns [..., Qm] LLRs (same convention as ops/llr.demap_llr applied
-    to the MRC output).
-
-    Per-RE noise needs no kernel operand: pre-scaling y and h by
-    1/sqrt(n0) per element leaves the metric
-    -(num - l*h2)^2/h2 == -(num0 - l*h20)^2/(h20*n0) unchanged."""
-    A = y.shape[-1]
-    lead = y.shape[:-1]
-    N0 = int(np.prod(lead))
-    n_tiles = -(-N0 // LANES)
-    pad = n_tiles * LANES - N0
-
-    def prep(z):
-        f = jnp.moveaxis(z.reshape(N0, A), 0, 1)     # [A, N0]
-        if pad:
-            f = jnp.pad(f, ((0, 0), (0, pad)), constant_values=1.0)
-        return f
-
-    scale = jax.lax.rsqrt(jnp.broadcast_to(
-        jnp.asarray(n0_total, jnp.float32), lead)).reshape(N0, 1)
-    yf = y.reshape(N0, A) * scale
-    hf = H.reshape(N0, A) * scale
-    args = (prep(yf.real), prep(yf.imag), prep(hf.real), prep(hf.imag))
-    out = _build_call(A, Qm, n_tiles, interpret)(*args)    # [Qm, N]
-    return jnp.moveaxis(out[:, :N0], 0, 1).reshape(*lead, Qm)
-
-
 def mrc_llr(y, H, n0_total, Qm: int):
-    """Fused MRC + equalize + max-log LLR. y, H: [..., A] complex;
-    n0_total scalar or broadcastable to y.shape[:-1].
+    """y, H: [..., A] complex; n0_total scalar or broadcastable to
+    y.shape[:-1]. Returns [..., Qm] LLRs in ops/llr.demap_llr's order
+    (bit 2*b + axis is bit b of the I (axis 0) or Q (axis 1) PAM level).
 
-    Pallas kernel on accelerators; the two-stage XLA oracle on CPU.
-    Set OPENAIR4G_NO_PALLAS=1 to force the XLA path everywhere.
-    """
-    if jax.default_backend() == "cpu" or os.environ.get(
-            "OPENAIR4G_NO_PALLAS"):
-        x_hat, n0_eff = mrc_equalize(y, H, n0_total)
-        return demap_llr(x_hat, n0_eff, Qm)
-    return mrc_llr_pallas(y, H, n0_total, Qm)
-
-
-def demap_llr_fused(x_hat, n0_eff, Qm: int):
-    """Fused max-log demap of an ALREADY-equalized symbol stream with
-    per-RE effective noise (the SM / Alamouti receivers' tail). Same
-    result as ops/llr.demap_llr, but on accelerators the [..., L]
-    distance tensor stays in VMEM: degenerate A=1 MRC with h=1."""
-    if jax.default_backend() == "cpu" or os.environ.get(
-            "OPENAIR4G_NO_PALLAS"):
-        return demap_llr(x_hat, n0_eff, Qm)
-    ones = jnp.ones(x_hat.shape + (1,), jnp.complex64)
-    return mrc_llr_pallas(x_hat[..., None].astype(jnp.complex64), ones,
-                          n0_eff, Qm)
+    y and h are pre-scaled by 1/sqrt(n0) per RE, which leaves the metric
+    -(num - l*h2)^2/h2 equal to -(num0 - l*h20)^2/(h20*n0)."""
+    levels, bit_of_level = _pam_levels(Qm)
+    scale = jax.lax.rsqrt(jnp.asarray(n0_total, jnp.float32))[..., None]
+    ys = y * scale
+    hs = H * scale
+    num_re = jnp.sum(ys.real * hs.real + ys.imag * hs.imag, axis=-1)
+    num_im = jnp.sum(ys.imag * hs.real - ys.real * hs.imag, axis=-1)
+    h2 = jnp.maximum(jnp.sum(hs.real ** 2 + hs.imag ** 2, axis=-1), _EPS)
+    inv = 1.0 / h2
+    # per-level metrics as separate arrays (no [..., L] tensor): the whole
+    # chain is elementwise and max, which XLA fuses into one pass
+    out = [None] * Qm
+    for axis, v in ((0, num_re), (1, num_im)):
+        metric = [-(v - float(lv) * h2) ** 2 * inv for lv in levels]
+        for b in range(Qm // 2):
+            m = [None, None]
+            for li, bit in enumerate(bit_of_level[b].tolist()):
+                m[bit] = metric[li] if m[bit] is None \
+                    else jnp.maximum(m[bit], metric[li])
+            out[2 * b + axis] = m[0] - m[1]
+    return jnp.stack(out, axis=-1)

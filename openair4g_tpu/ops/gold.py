@@ -6,7 +6,7 @@ dlsch_scrambling.c:51.
 
 Sequences are per-(c_init, length) constants: generated once on the host with
 vectorized numpy and baked into the jitted program as 0/1 arrays. On device,
-scrambling is a sign flip on LLRs / XOR on bits — pure VPU elementwise work.
+scrambling is a sign flip on LLRs / XOR on bits — pure elementwise work.
 """
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ and dlsch_llr_computation.c:636/688/810 (QPSK/16QAM/64QAM max-log LLRs).
 
 The reference computes LLRs with Q15 folding tricks (|y|-mag cascades); here
 the exact max-log LLR is computed from per-axis distances to the Gray-coded
-PAM levels — a handful of VPU ops per RE, batched over everything, and correct
+PAM levels — a handful of elementwise ops per RE, batched over everything, and correct
 for any noise variance (the N0 scaling matters once 16/64QAM rings are mixed).
 
 Convention: LLR = log P(bit=0)/P(bit=1) (positive <=> bit 0), bits MSB-first
@@ -27,9 +27,8 @@ def map_symbols(bits, Qm: int):
     Closed-form Gray/PAM arithmetic instead of a constellation-table
     gather (36.211 Table 7.1.x separable mapping: per axis,
     QPSK 1; 16QAM 2-(1-2b); 64QAM 4-(1-2b)(2-(1-2b')); all times the
-    sign bit) — a [B, E] gather from even a 64-entry table costs ~13 ms
-    at the 20 MHz flagship batch on TPU while these few VPU ops fuse
-    into the surrounding program for free. Bit-exact vs tables.modulation
+    sign bit) — a few elementwise ops that fuse into the surrounding
+    program, where a [B, E] table gather would be a separate pass. Bit-exact vs tables.modulation
     (tests/test_chain).
     """
     B, E = bits.shape

@@ -4,7 +4,7 @@ Reference parity: openair1/PHY/CODING/lte_rate_matching.c
 (sub_block_interleaving_turbo :51, generate_dummy_w :293,
 lte_rate_matching_turbo :464, lte_rate_matching_turbo_rx :688).
 
-TPU-native design: the whole sub-block-interleave -> circular-buffer ->
+Design: the whole sub-block-interleave -> circular-buffer ->
 bit-selection pipeline is data-independent given (K, F, rv, E, Ncb), so it is
 precomputed on the host as index maps once per configuration:
 
@@ -15,8 +15,8 @@ precomputed on the host as index maps once per configuration:
     followed by a static roll of r_off (the rv-dependent start k0 is just a
     rotation of the same non-NULL sequence). HARQ rounds accumulate into that
     persistent order-space buffer (the reference's harq_process->w soft
-    combining, dlsch_decoding.c:350) — all reshapes/rolls, which cost ~nothing
-    on TPU, instead of a scatter-add which costs milliseconds.
+    combining, dlsch_decoding.c:350) — all reshapes/rolls instead of a
+    scatter-add.
   * order space -> d streams: one static gather (d_from_order).
 
 NULL positions (dummy padding + filler bits in streams 0/1) are never indexed.
@@ -266,86 +266,5 @@ def w_to_d_llr(w_soft, maps: RateMatchMaps, filler_big: float = 1e4):
     d_llr = (vals * mask).reshape(-1, 3, D)
     if maps.F:
         # fillers: first F systematic (stream 0) bits are known zeros
-        d_llr = d_llr.at[:, 0, :maps.F].set(filler_big)
-    return d_llr
-
-
-
-@functools.lru_cache(maxsize=None)
-def _expand_runs(K: int, F: int, rv: int, E: int, Ncb: int | None = None):
-    """Run-length structure of the order-space -> w expansion: w is os
-    with zeros reinserted at the static NULL positions. Returns a tuple
-    of (gap_zeros, run_len) pairs covering w[0:Ncb] in order."""
-    m = make_rate_match_maps(K, F, rv, E, Ncb)
-    D = K + 4
-    w_src, Kpi = _w_maps(D, F)
-    nonnull = np.nonzero(w_src[:m.Ncb] >= 0)[0]
-    runs = []
-    pos = 0           # next w position to cover
-    i = 0
-    while i < len(nonnull):
-        gap = int(nonnull[i] - pos)
-        j = i
-        while j + 1 < len(nonnull) and nonnull[j + 1] == nonnull[j] + 1:
-            j += 1
-        runs.append((gap, int(j - i + 1)))
-        pos = int(nonnull[j]) + 1
-        i = j + 1
-    tail = m.Ncb - pos
-    return tuple(runs), int(tail), Kpi
-
-
-def w_to_d_llr_struct(w_soft, maps: RateMatchMaps,
-                      filler_big: float = 1e4):
-    """Structural order-space -> d-stream inverse (no large gather).
-
-    The sub-block interleaver is reshape + static 32-column permutation +
-    transpose, so its inverse is too; NULL reinsertion is a static
-    concatenation of contiguous runs. On TPU this replaces the [B, 3D]
-    float gather of w_to_d_llr (measured milliseconds at flagship batch)
-    with pure data movement. Exactly equivalent (tests/test_rate_match).
-    """
-    import jax.numpy as jnp
-    B = w_soft.shape[0]
-    D = maps.K + 4
-    runs, tail, Kpi = _expand_runs(maps.K, maps.F, maps.rv, maps.E,
-                                   maps.Ncb)
-    ND = Kpi - D
-    # 1) expand os -> w[0:Ncb] (zeros at NULLs), pad to Kw
-    parts = []
-    pos = 0
-    for gap, ln in runs:
-        if gap:
-            parts.append(jnp.zeros((B, gap), w_soft.dtype))
-        parts.append(w_soft[:, pos:pos + ln])
-        pos += ln
-    if tail:
-        parts.append(jnp.zeros((B, tail), w_soft.dtype))
-    if maps.Ncb < maps.Kw:
-        parts.append(jnp.zeros((B, maps.Kw - maps.Ncb), w_soft.dtype))
-    wbuf = jnp.concatenate(parts, axis=1)                # [B, Kw]
-    # 2) split streams: v0 | v1,v2 interlaced
-    v0 = wbuf[:, :Kpi]
-    v12 = wbuf[:, Kpi:].reshape(B, Kpi, 2)
-    v1 = v12[:, :, 0]
-    v2 = v12[:, :, 1]
-    # 3) inverse sub-block interleave: v[c*R + r] = y[r*32 + PERM32[c]]
-    #    => y2d[:, PERM32] = v2d.T  (v viewed [32, R])
-    R = Kpi // 32
-    inv = np.empty(32, np.int64)
-    inv[PERM32] = np.arange(32)
-
-    def deinterleave(v):
-        y = jnp.swapaxes(v.reshape(B, 32, R), 1, 2)      # [B, R, 32]
-        y = y[:, :, jnp.asarray(PERM32)]                 # y2d[r, c]
-        return y.reshape(B, Kpi)
-
-    d0 = deinterleave(v0)[:, ND:]
-    d1 = deinterleave(v1)[:, ND:]
-    # stream 2: v2[k] = y[(32 r + PERM32[c] + 1) mod Kpi] — same inverse
-    # on the index-shifted buffer, then a circular roll by +1
-    d2 = jnp.roll(deinterleave(v2), 1, axis=1)[:, ND:]
-    d_llr = jnp.stack([d0, d1, d2], axis=1)              # [B, 3, D]
-    if maps.F:
         d_llr = d_llr.at[:, 0, :maps.F].set(filler_big)
     return d_llr

@@ -1,29 +1,23 @@
-"""Pallas TPU kernel for the windowed max-log-MAP half-iteration.
+"""Pallas kernel (Triton route) for the windowed max-log-MAP half-iteration.
 
-Reference parity: the same BCJR math as ops/turbo._half_iteration (which
-remains the portable XLA path and the CPU/test oracle); this kernel keeps
-the alpha/beta recursions entirely in VMEM — the XLA scan materializes
-[T, 8, B, n_w] alpha/beta stacks to HBM every half-iteration, which is
-the decoder's bandwidth bottleneck.
+Same BCJR math as ops/turbo._half_iteration, which stays the plain XLA
+path and the reference for this kernel. The XLA path is a `lax.scan`
+that writes [W+U, 8, B, n_w] alpha and beta stacks to device memory and
+reads them back for the LLR, with a few small launches per scan step.
+Here one launch covers the whole half-iteration:
 
-STATE-TILE formulation (round-3 speed-of-light work, 88.5 -> 147 Mbit/s
-at K=6144 x 512 x 8 iterations): all metrics live as [8, L] tiles
-(8 trellis states on sublanes, batch x window columns on lanes) and the
-trellis wiring is applied with STATIC sublane gathers
-(`take_along_axis` with iota-derived index patterns) — no per-row
-Python indexing, so no row-extract/stack relayouts, and the beta
-scratch store/load is a full-tile move. The trellis loops unroll R=8
-steps per fori iteration and normalize once per block (max-log metrics
-are offset-invariant; a common per-node offset cancels in the LLR
-max-difference, so normalization is purely f32 range control).
+  * one lane = one (code block, window) pair; a block of `lanes` lanes is
+    one Triton program, and each thread owns its lanes' 8 state metrics
+    in registers for the whole recursion;
+  * the backward sweep writes the window's beta metrics once ([W+1, 8]
+    per lane, a second output that the caller discards); the forward
+    sweep reads them back in the same program and emits the LLR, so the
+    alpha metrics never leave registers;
+  * the warm-up rows come from the neighbouring window's lanes (a one-lane
+    roll of the t-major frames), so nothing carries between programs.
 
-Closed-form trellis (g0 = 1+D^2+D^3 feedback, g1 = 1+D+D^3; verified
-against the table build in ops/turbo._trellis by tests):
-  NEXT[s,u]   = ((u ^ (s>>1) ^ s) & 1) << 2 | (s >> 1)
-  PARITY[s,u] = (u ^ (s>>2) ^ (s>>1)) & 1           (flips with u)
-  PRED[s',j]  = 2*(s' & 3) + j
-  incoming (j=0): u0 = (s'>>2) ^ (s'&1), z0 = (s'>>2) ^ ((s'>>1)&1);
-  both flip for j=1 (input and parity toggle with the pred's r3 bit).
+Inputs are t-major ([W, L] and [U, L], L = blocks x windows, padded to a
+multiple of `lanes`), which makes every row load and store coalesced.
 """
 from __future__ import annotations
 
@@ -33,342 +27,176 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from . import turbo as _t
 
-LANES = 1024
-NEG = _t.NEG
+_NEXT = _t.NEXT_STATE.tolist()
+_PAR = _t.PARITY.tolist()
+_PRED_S = _t.PRED_S.tolist()
+_PRED_U = _t.PRED_U.tolist()
+_PRED_Z = _t.PRED_Z.tolist()
 
 
-def _pick_unroll(T: int, U: int) -> int:
-    for r in (8, 4, 2):
-        if T % r == 0 and U % r == 0:
-            return r
-    return 1
+def _sign(bit: int) -> float:
+    return 1.0 - 2.0 * bit
 
 
-def _consts():
-    """Iota-derived wiring tensors ([8, LANES] indices, [8, 1] signs)."""
-    s = jax.lax.broadcasted_iota(jnp.int32, (8, LANES), 0)
-    a0 = (s >> 1) ^ s                      # u = 0
-    idxn0 = ((a0 & 1) << 2) | (s >> 1)
-    idxn1 = (((a0 ^ 1) & 1) << 2) | (s >> 1)
-    idxp0 = 2 * (s & 3)
-    idxp1 = idxp0 + 1
-    sc = jax.lax.broadcasted_iota(jnp.int32, (8, 1), 0)
-    f = jnp.float32
-    sz0 = 1.0 - 2.0 * (((sc >> 2) ^ (sc >> 1)) & 1).astype(f)   # PARITY[:,0]
-    # incoming transition j=0 (pred = 2*(s&3)): u0 = (s>>2)^(s&1),
-    # z0 = (s>>2)^((s>>1)&1); both flip for j=1 (u,z toggle with r3)
-    su_p = 1.0 - 2.0 * (((sc >> 2) ^ sc) & 1).astype(f)
-    sz_p = 1.0 - 2.0 * (((sc >> 2) ^ (sc >> 1)) & 1).astype(f)
-    exact0 = jnp.where(sc == 0, 0.0, NEG).astype(f)
-    return idxn0, idxn1, idxp0, idxp1, sz0, su_p, sz_p, exact0
+def _norm(m):
+    top = m[0]
+    for s in range(1, 8):
+        top = jnp.maximum(top, m[s])
+    return tuple(x - top for x in m)
 
 
-def _make_kernel(T: int, W: int, U: int):
-    R = _pick_unroll(T, U)
-    take = lambda x, i: jnp.take_along_axis(x, i, axis=0)
-
-    def kernel(guf_ref, gpf_ref, gub_ref, gpb_ref, win0_ref, out_ref,
-               beta_scr):
-        idxn0, idxn1, idxp0, idxp1, sz0, su_p, sz_p, exact0 = _consts()
-        win0 = win0_ref[0, :] > 0.5                       # [L]
-
-        def norm(x):
-            return x - jnp.max(x, axis=0, keepdims=True)
-
-        # ---- backward sweep ------------------------------------------------
-        def bwd(i, beta):
-            for r in range(R):
-                t = T - 1 - (i * R + r)
-                gu = gub_ref[t, :][None, :]
-                gp_term = sz0 * gpb_ref[t, :][None, :]
-                c0 = take(beta, idxn0) + gu + gp_term
-                c1 = take(beta, idxn1) - gu - gp_term
-                beta = jnp.maximum(c0, c1)
-                beta_scr[t] = beta
-            return norm(beta)
-
-        jax.lax.fori_loop(0, T // R, bwd, jnp.zeros((8, LANES), jnp.float32))
-
-        # ---- forward warmup ------------------------------------------------
-        def astep(alpha, gu_row, gp_row):
-            base = su_p * gu_row[None, :] + sz_p * gp_row[None, :]
-            return jnp.maximum(take(alpha, idxp0) + base,
-                               take(alpha, idxp1) - base)
-
-        def warm(i, alpha):
-            for r in range(R):
-                t = i * R + r
-                alpha = astep(alpha, guf_ref[t, :], gpf_ref[t, :])
-            return norm(alpha)
-
-        alpha0 = jax.lax.fori_loop(0, U // R, warm,
-                                   jnp.zeros((8, LANES), jnp.float32))
-        alpha0 = jnp.where(win0[None, :], exact0, alpha0)
-
-        # ---- forward work + fused LLR --------------------------------------
-        def work(i, alpha):
-            for r in range(R):
-                tau = i * R + r
-                gu_n = gub_ref[tau, :]
-                gp_term = sz0 * gpb_ref[tau, :][None, :]
-                beta_next = beta_scr[tau + 1]
-                m0 = jnp.max(alpha + gp_term + take(beta_next, idxn0),
-                             axis=0)
-                m1 = jnp.max(alpha - gp_term + take(beta_next, idxn1),
-                             axis=0)
-                out_ref[tau, :] = (m0 + gu_n) - (m1 - gu_n)
-                alpha = astep(alpha, guf_ref[U + tau, :],
-                              gpf_ref[U + tau, :])
-            return norm(alpha)
-
-        jax.lax.fori_loop(0, W // R, work, alpha0)
-
-    return kernel
+def _alpha_step(alpha, gu, gp):
+    new = []
+    for s in range(8):
+        c = [alpha[_PRED_S[s][j]] + _sign(_PRED_U[s][j]) * gu
+             + _sign(_PRED_Z[s][j]) * gp for j in (0, 1)]
+        new.append(jnp.maximum(c[0], c[1]))
+    return _norm(new)
 
 
-@functools.lru_cache(maxsize=None)
-def _build_call(T: int, W: int, U: int, n_tiles: int,
-                interpret: bool = False):
-    kernel = _make_kernel(T, W, U)
-    L = n_tiles * LANES
-    in_spec_T = pl.BlockSpec((T, LANES), lambda i: (0, i),
-                             memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[in_spec_T, in_spec_T, in_spec_T, in_spec_T,
-                  pl.BlockSpec((1, LANES), lambda i: (0, i),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((W, LANES), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((W, L), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((T, 8, LANES), jnp.float32)],
-        interpret=interpret,
-    )
+def _beta_step(beta, gu, gp):
+    new = []
+    for s in range(8):
+        c = [beta[_NEXT[s][u]] + _sign(u) * gu + _sign(_PAR[s][u]) * gp
+             for u in (0, 1)]
+        new.append(jnp.maximum(c[0], c[1]))
+    return _norm(new)
 
 
-def prep_parity(lp, W: int, U: int):
-    """Window-frame + pad the PARITY gammas once: inside the turbo
-    iteration scan the parity streams are loop-invariant, but XLA does
-    not hoist this framing (4 transposed HBM passes per half-iteration)
-    out of the scan body on its own — precomputing it outside the scan
-    is worth ~25% of the whole 8-iteration decode."""
-    B, N = lp.shape
-    n_w = N // W
-    T = W + U
-    gp = 0.5 * lp
-    gpf = jnp.moveaxis(_t._frame_fwd(gp, W, U), -1, 0).reshape(T, B * n_w)
-    gpb = jnp.moveaxis(_t._frame_bwd(gp, W, U, _t.BIG), -1, 0
-                       ).reshape(T, B * n_w)
-    L0 = B * n_w
-    n_tiles = -(-L0 // LANES)
-    pad = n_tiles * LANES - L0
-    if pad:
-        gpf = jnp.pad(gpf, ((0, 0), (0, pad)))
-        gpb = jnp.pad(gpb, ((0, 0), (0, pad)), constant_values=_t.BIG)
-    return gpf, gpb
+def _make_kernel(W: int, U: int, lanes: int, barrier: bool):
+    def kernel(gum, guw, gut, gpm, gpw, gpt, flags, out, beta_st):
+        win0 = flags[0, :] > 0.5
+        winlast = flags[1, :] > 0.5
+        zeros = tuple(jnp.zeros((lanes,), jnp.float32) for _ in range(8))
 
+        def exact0(mask, m):
+            return tuple(jnp.where(mask, 0.0 if s == 0 else _t.NEG, m[s])
+                         for s in range(8))
 
-def half_iteration_pallas_prepped(lin, gpf, gpb, W: int, U: int,
-                                  interpret: bool = False):
-    """Half-iteration with pre-framed parity (prep_parity)."""
-    B, N = lin.shape
-    n_w = N // W
-    T = W + U
-    gu = 0.5 * lin
-    guf = jnp.moveaxis(_t._frame_fwd(gu, W, U), -1, 0).reshape(T, B * n_w)
-    gub = jnp.moveaxis(_t._frame_bwd(gu, W, U, _t.BIG), -1, 0
-                       ).reshape(T, B * n_w)
-    win0 = jnp.asarray(
-        np.tile((np.arange(n_w) == 0), B).astype(np.float32))[None, :]
-    L0 = B * n_w
-    n_tiles = -(-L0 // LANES)
-    pad = n_tiles * LANES - L0
-    if pad:
-        guf = jnp.pad(guf, ((0, 0), (0, pad)))
-        gub = jnp.pad(gub, ((0, 0), (0, pad)), constant_values=_t.BIG)
-        win0 = jnp.pad(win0, ((0, 0), (0, pad)))
-    out = _build_call(T, W, U, n_tiles, interpret)(guf, gpf, gub, gpb, win0)
-    out = out[:, :L0].reshape(W, B, n_w)
-    return jnp.moveaxis(out, 0, 2).reshape(B, N)
-
-
-def half_iteration_pallas(lin, lp, W: int, U: int, interpret: bool = False):
-    gpf, gpb = prep_parity(lp, W, U)
-    return half_iteration_pallas_prepped(lin, gpf, gpb, W, U, interpret)
-
-
-# ---------------------------------------------------------------------------
-# v2 kernel: t-major framing without the fwd/bwd window-replicated builds.
-# v1 materializes FOUR [T=W+U, L] transposed arrays per half-iteration
-# (fwd + reversed-bwd for gu, same for gp — ~17 MB of relayouts each
-# iteration at flagship shapes, the round-4 "Leads" item). v2 keeps ONE
-# t-major [W, L] array per stream; the U warm-up rows for the forward
-# sweep are the previous window's tail = a single-lane roll (windows of
-# one block are adjacent lanes), and the backward sweep's tail warm-up is
-# the next window's head = the opposite roll, with win0/win_last lanes
-# masked (window 0 is exact-started, the last window ends in the forced
-# state-0 pad). The backward main sweep reads the SAME [W, L] rows in
-# reverse index order inside the kernel — no reversed copy exists at all.
-# ---------------------------------------------------------------------------
-
-def _make_kernel_v2(W: int, U: int):
-    R = _pick_unroll(W + U, U)
-    take = lambda x, i: jnp.take_along_axis(x, i, axis=0)
-
-    def kernel(gum_ref, guw_ref, gut_ref, gpm_ref, gpw_ref, gpt_ref,
-               win0_ref, out_ref, beta_scr):
-        idxn0, idxn1, idxp0, idxp1, sz0, su_p, sz_p, exact0 = _consts()
-        win0 = win0_ref[0, :] > 0.5
-
-        def norm(x):
-            return x - jnp.max(x, axis=0, keepdims=True)
-
-        def bstep(beta, gu_row, gp_row):
-            gu = gu_row[None, :]
-            gp_term = sz0 * gp_row[None, :]
-            c0 = take(beta, idxn0) + gu + gp_term
-            c1 = take(beta, idxn1) - gu - gp_term
-            return jnp.maximum(c0, c1)
-
-        # ---- backward: tail warm rows (reversed), then main reversed ----
+        # backward: warm-up over the next window's head, then the window
         def bwarm(i, beta):
-            for r in range(R):
-                t = U - 1 - (i * R + r)
-                beta = bstep(beta, gut_ref[t, :], gpt_ref[t, :])
-            return norm(beta)
+            t = U - 1 - i
+            return _beta_step(beta, gut[t, :], gpt[t, :])
 
-        beta = jax.lax.fori_loop(0, U // R, bwarm,
-                                 jnp.zeros((8, LANES), jnp.float32))
-        beta_scr[W] = beta
+        beta = jax.lax.fori_loop(0, U, bwarm, zeros)
+        term = exact0(winlast, beta)       # the trellis end is state 0
+        for s in range(8):
+            beta_st[W, s, :] = term[s]
 
         def bmain(i, beta):
-            for r in range(R):
-                t = W - 1 - (i * R + r)
-                beta = bstep(beta, gum_ref[t, :], gpm_ref[t, :])
-                beta_scr[t] = beta
-            return norm(beta)
+            t = W - 1 - i
+            beta = _beta_step(beta, gum[t, :], gpm[t, :])
+            for s in range(8):
+                beta_st[t, s, :] = beta[s]
+            return beta
 
-        jax.lax.fori_loop(0, W // R, bmain, beta)
+        jax.lax.fori_loop(0, W, bmain, beta)
+        if barrier:
+            pltriton.debug_barrier()
 
-        # ---- forward warm-up --------------------------------------------
-        def astep(alpha, gu_row, gp_row):
-            base = su_p * gu_row[None, :] + sz_p * gp_row[None, :]
-            return jnp.maximum(take(alpha, idxp0) + base,
-                               take(alpha, idxp1) - base)
+        # forward: warm-up over the previous window's tail, then the
+        # window with the LLR fused in
+        def fwarm(t, alpha):
+            return _alpha_step(alpha, guw[t, :], gpw[t, :])
 
-        def fwarm(i, alpha):
-            for r in range(R):
-                t = i * R + r
-                alpha = astep(alpha, guw_ref[t, :], gpw_ref[t, :])
-            return norm(alpha)
+        alpha = exact0(win0, jax.lax.fori_loop(0, U, fwarm, zeros))
 
-        alpha0 = jax.lax.fori_loop(0, U // R, fwarm,
-                                   jnp.zeros((8, LANES), jnp.float32))
-        alpha0 = jnp.where(win0[None, :], exact0, alpha0)
+        def work(t, alpha):
+            gu = gum[t, :]
+            gp = gpm[t, :]
+            bn = [beta_st[t + 1, s, :] for s in range(8)]
+            m = []
+            for u in (0, 1):
+                best = None
+                for s in range(8):
+                    c = alpha[s] + _sign(_PAR[s][u]) * gp + bn[_NEXT[s][u]]
+                    best = c if best is None else jnp.maximum(best, c)
+                m.append(best)
+            out[t, :] = (m[0] + gu) - (m[1] - gu)
+            return _alpha_step(alpha, gu, gp)
 
-        # ---- forward work + fused LLR -----------------------------------
-        def work(i, alpha):
-            for r in range(R):
-                tau = i * R + r
-                gu_n = gum_ref[tau, :]
-                gp_term = sz0 * gpm_ref[tau, :][None, :]
-                beta_next = beta_scr[tau + 1]
-                m0 = jnp.max(alpha + gp_term + take(beta_next, idxn0),
-                             axis=0)
-                m1 = jnp.max(alpha - gp_term + take(beta_next, idxn1),
-                             axis=0)
-                out_ref[tau, :] = (m0 + gu_n) - (m1 - gu_n)
-                alpha = astep(alpha, gum_ref[tau, :], gpm_ref[tau, :])
-            return norm(alpha)
-
-        jax.lax.fori_loop(0, W // R, work, alpha0)
+        jax.lax.fori_loop(0, W, work, alpha)
 
     return kernel
 
 
 @functools.lru_cache(maxsize=None)
-def _build_call_v2(W: int, U: int, n_tiles: int, interpret: bool = False):
-    kernel = _make_kernel_v2(W, U)
-    L = n_tiles * LANES
-    spec_W = pl.BlockSpec((W, LANES), lambda i: (0, i),
-                          memory_space=pltpu.VMEM)
-    spec_U = pl.BlockSpec((U, LANES), lambda i: (0, i),
-                          memory_space=pltpu.VMEM)
-    spec_1 = pl.BlockSpec((1, LANES), lambda i: (0, i),
-                          memory_space=pltpu.VMEM)
+def _build_call(W: int, U: int, n_lanes: int, lanes: int,
+                interpret: bool = False):
+    spec_w = pl.BlockSpec((W, lanes), lambda i: (0, i))
+    spec_u = pl.BlockSpec((U, lanes), lambda i: (0, i))
     return pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[spec_W, spec_U, spec_U, spec_W, spec_U, spec_U, spec_1],
-        out_specs=pl.BlockSpec((W, LANES), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((W, L), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((W + 1, 8, LANES), jnp.float32)],
+        _make_kernel(W, U, lanes, barrier=not interpret),
+        grid=(n_lanes // lanes,),
+        in_specs=[spec_w, spec_u, spec_u, spec_w, spec_u, spec_u,
+                  pl.BlockSpec((2, lanes), lambda i: (0, i))],
+        out_specs=[spec_w,
+                   pl.BlockSpec((W + 1, 8, lanes), lambda i: (0, 0, i))],
+        out_shape=[jax.ShapeDtypeStruct((W, n_lanes), jnp.float32),
+                   jax.ShapeDtypeStruct((W + 1, 8, n_lanes), jnp.float32)],
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=max(1, lanes // 32),
+                                                num_stages=1),
         interpret=interpret,
+        name="turbo_half_iteration",
     )
 
 
-def _tmajor_frames(g, W: int, U: int, win0_row, winlast_row,
-                   tail_fill: float):
-    """[B, N] -> (main [W, L0], fwd-warm [U, L0], bwd-warm [U, L0])."""
+def _tmajor_frames(g, W: int, U: int, win0, winlast, tail_fill: float):
+    """[B, N] -> (main [W, L0], fwd warm-up [U, L0], bwd warm-up [U, L0]).
+
+    Lane b*n_w + w is window w of block b, so window w's forward warm-up
+    (positions w*W - U + t) is the tail of lane - 1 and its backward
+    warm-up (positions (w+1)*W + t) is the head of lane + 1."""
     B, N = g.shape
     n_w = N // W
     gm = jnp.moveaxis(g.reshape(B, n_w, W), -1, 0).reshape(W, B * n_w)
-    # fwd warm rows t: position wW - U + t = main row W-U+t of window w-1
-    gw = jnp.roll(gm[W - U:], 1, axis=1)
-    gw = jnp.where(win0_row, 0.0, gw)
-    # bwd tail rows t: position (w+1)W + t = main row t of window w+1
-    gt = jnp.roll(gm[:U], -1, axis=1)
-    gt = jnp.where(winlast_row, tail_fill, gt)
+    gw = jnp.where(win0, 0.0, jnp.roll(gm[W - U:], 1, axis=1))
+    gt = jnp.where(winlast, tail_fill, jnp.roll(gm[:U], -1, axis=1))
     return gm, gw, gt
 
 
-def _lane_masks(B: int, n_w: int):
-    win0 = np.tile(np.arange(n_w) == 0, B)[None, :]
-    winlast = np.tile(np.arange(n_w) == n_w - 1, B)[None, :]
-    return win0, winlast
+def _lane_flags(B: int, n_w: int):
+    w = np.tile(np.arange(n_w), B)
+    return w == 0, w == n_w - 1
 
 
-def _pad_tiles(x, L0: int, fill: float = 0.0):
-    n_tiles = -(-L0 // LANES)
-    pad = n_tiles * LANES - L0
-    if pad:
-        x = jnp.pad(x, ((0, 0), (0, pad)), constant_values=fill)
-    return x, n_tiles
+def _pad_lanes(x, n_lanes: int, fill: float = 0.0):
+    pad = n_lanes - x.shape[-1]
+    return jnp.pad(x, ((0, 0), (0, pad)), constant_values=fill) if pad else x
 
 
-def prep_parity_v2(lp, W: int, U: int):
-    """Hoisted parity framing for the v2 kernel: (gpm, gpw, gpt)."""
+def prep_parity(lp, W: int, U: int, lanes: int):
+    """Frame the parity gammas once per code block: they are the same in
+    every turbo iteration."""
     B, N = lp.shape
     n_w = N // W
-    win0, winlast = _lane_masks(B, n_w)
-    gpm, gpw, gpt = _tmajor_frames(0.5 * lp, W, U, jnp.asarray(win0),
-                                   jnp.asarray(winlast), _t.BIG)
-    L0 = B * n_w
-    return (_pad_tiles(gpm, L0)[0], _pad_tiles(gpw, L0)[0],
-            _pad_tiles(gpt, L0, _t.BIG)[0])
+    n_lanes = -(-B * n_w // lanes) * lanes
+    win0, winlast = _lane_flags(B, n_w)
+    gm, gw, gt = _tmajor_frames(0.5 * lp, W, U, win0, winlast, _t.BIG)
+    return (_pad_lanes(gm, n_lanes), _pad_lanes(gw, n_lanes),
+            _pad_lanes(gt, n_lanes, _t.BIG))
 
 
-def half_iteration_pallas_v2(lin, prep, W: int, U: int,
-                             interpret: bool = False):
-    """v2 half-iteration: prep = prep_parity_v2 output."""
+def half_iteration(lin, prep, W: int, U: int, lanes: int,
+                   interpret: bool = False):
+    """lin [B, N] systematic+apriori LLRs, `prep` from prep_parity ->
+    APP LLR [B, N], as ops/turbo._half_iteration(lin, lp, W, U)."""
     gpm, gpw, gpt = prep
     B, N = lin.shape
     n_w = N // W
     L0 = B * n_w
-    win0, winlast = _lane_masks(B, n_w)
-    gum, guw, gut = _tmajor_frames(0.5 * lin, W, U, jnp.asarray(win0),
-                                   jnp.asarray(winlast), _t.BIG)
-    gum, n_tiles = _pad_tiles(gum, L0)
-    guw, _ = _pad_tiles(guw, L0)
-    gut, _ = _pad_tiles(gut, L0, _t.BIG)
-    w0, _ = _pad_tiles(jnp.asarray(win0.astype(np.float32)), L0)
-    out = _build_call_v2(W, U, n_tiles, interpret)(
-        gum, guw, gut, gpm, gpw, gpt, w0)
+    n_lanes = gpm.shape[1]
+    win0, winlast = _lane_flags(B, n_w)
+    gum, guw, gut = _tmajor_frames(0.5 * lin, W, U, win0, winlast, _t.BIG)
+    flags = _pad_lanes(jnp.asarray(np.stack([win0, winlast]), jnp.float32),
+                       n_lanes)
+    out, _ = _build_call(W, U, n_lanes, lanes, interpret)(
+        _pad_lanes(gum, n_lanes), _pad_lanes(guw, n_lanes),
+        _pad_lanes(gut, n_lanes, _t.BIG), gpm, gpw, gpt, flags)
     out = out[:, :L0].reshape(W, B, n_w)
     return jnp.moveaxis(out, 0, 2).reshape(B, N)

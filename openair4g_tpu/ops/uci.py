@@ -9,7 +9,7 @@ Reference parity (behavior, not code):
   - openair1/PHY/LTE_TRANSPORT/ulsch_decoding.c:230-1418 — control
     demultiplexing and CQI conv decode + CRC8 check (extract_cqi_crc :208).
 
-TPU-native design: the interleaver is resolved ONCE on the host into static
+Design: the interleaver is resolved ONCE on the host into static
 index maps over *modulation symbols* of the [C_sym, M_sc] PUSCH data grid
 (flat index p = sym*M + r, matching scfdma.pusch_fill_grid layout, i.e. the
 reference's column-major read of its row-major y[] matrix). TX is then pure
@@ -23,8 +23,8 @@ CQI coding: O <= 11 payload bits use the (32, O) Reed-Muller block code of
 36.212 Table 5.2.2.6.4-1 with circular repetition (the reference rejects
 this range, ulsch_coding.c:568 "short CQI sizes not supported yet" — we
 support it); O >= 12 uses CRC8 + rate-1/3 tail-biting CC + CC rate matching,
-the reference's only path. RM decode is ML: one [2^O, 32] codebook matmul
-on the MXU; CC decode is the batched Viterbi of ops/convcode.py.
+the reference's only path. RM decode is ML: one [2^O, 32] codebook
+matmul; CC decode is the batched Viterbi of ops/convcode.py.
 """
 from __future__ import annotations
 
@@ -201,7 +201,7 @@ def make_uci_maps(m_sc: int, n_data_sym: int, Qm: int, sum_kr: int,
 
 @functools.lru_cache(maxsize=None)
 def _rm32_codebook(O: int) -> np.ndarray:
-    """[2^O, 32] all codewords of the (32, O) code (for MXU ML decode)."""
+    """[2^O, 32] all codewords of the (32, O) code (for the matmul ML decode)."""
     assert 1 <= O <= 11
     msgs = ((np.arange(1 << O)[:, None] >> np.arange(O)) & 1).astype(np.int8)
     return (msgs @ RM32_BASIS[:, :O].T) % 2

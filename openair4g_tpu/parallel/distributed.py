@@ -1,16 +1,16 @@
-"""Multi-host BLER sweeps over DCN: jax.distributed + global mesh.
+"""Multi-host BLER sweeps over the network: jax.distributed + global mesh.
 
 Reference parity: distributed oaisim (`-M`) — eNB/UE instances sharded
 across machines exchanging per-frame buffers over IP multicast /
 OpenPGM (SIMULATION/ETH_TRANSPORT/{emu_transport.c, multicast_link.c,
 pgm_link.c}; master/worker frame barriers), and launch_sim.sh's PBS
-cluster sweeps. The TPU-native replacement: every host contributes its
-local chips to ONE global mesh (jax.distributed), the Monte-Carlo trial
-batch is sharded over the mesh's "ue" axis
-(jax.make_array_from_process_local_data builds the global batch from
-per-host key slices), and the error accumulators psum over ICI within a
-slice / DCN across slices — the collective replaces the multicast
-transport, the runtime's heartbeat replaces the frame barrier.
+cluster sweeps. Here every process contributes its local devices to ONE
+global mesh (jax.distributed), the Monte-Carlo trial batch is sharded
+over the mesh's "ue" axis (jax.make_array_from_process_local_data builds
+the global batch from per-process key slices), and the error
+accumulators psum across devices (NVLink within a host, the network
+across hosts) — the collective replaces the multicast transport, the
+runtime's heartbeat replaces the frame barrier.
 
 Determinism: trial keys derive from (seed, global trial index) on the
 host, so the N-host sweep is bit-identical to the 1-host sweep with the
@@ -20,14 +20,19 @@ Checkpoint/resume: sweep progress (per-SNR accumulators + stream index)
 persists through sim/harness.py's SweepState on process 0; a preempted
 multi-host job resumes at the last finished chunk (SURVEY.md §5).
 
-Single-process use (tests, this machine) needs no coordinator: call
+Single-process use (tests, one host) needs no coordinator: call
 `distributed_bler_sweep` directly — the global mesh is just the local
-devices. Multi-host use:
+devices. Multi-process use:
 
-    # on every host h of H:
+    # in every process h of H:
     python -m openair4g_tpu.parallel.distributed \
         --coordinator host0:1234 --nprocs H --proc-id h \
         --mcs 4 --n-rb 25 --snrs -2:2:0.5 --frames 10000
+
+A JAX process reserves most of a GPU's memory when it starts, so a
+second process on the same card fails. Run one process per card (each
+with its own CUDA_VISIBLE_DEVICES), or pass `--platform cpu` to every
+process, as the localhost multi-process tests do.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P, NamedSharding
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..utils.rng import host_keys
 
@@ -79,7 +84,7 @@ class DistributedSweep:
 
         self._step = jax.jit(shard_map(
             sharded, mesh=self.mesh, in_specs=(P(axis), P()),
-            out_specs=P(), check_rep=False))
+            out_specs=P(), check_vma=False))
 
     def _global_keys(self, seed: int, stream: int):
         """Build the globally-sharded key batch from per-process slices.
@@ -171,8 +176,8 @@ def main(argv=None):
     p.add_argument("--ckpt", default=None)
     p.add_argument("--platform", default=None,
                    help="force a JAX platform (e.g. cpu) before init — "
-                   "needed for localhost multi-process CPU runs where two "
-                   "processes must not dial the single TPU")
+                   "for localhost multi-process runs that must not share "
+                   "one GPU (one JAX process per card)")
     p.add_argument("--host-devices", type=int, default=0,
                    help="with --platform cpu: virtual device count per "
                    "process (xla_force_host_platform_device_count)")

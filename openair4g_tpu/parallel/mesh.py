@@ -9,7 +9,7 @@ subframe sample-stream pipeline (P2) — map to a JAX mesh with axes:
           halo = cyclic prefix / correlation tail via ppermute
 
 On one host this is the local device list; under jax.distributed the same
-code spans hosts (ICI within a slice, DCN across)."""
+code spans hosts (NVLink within a host, the network across)."""
 from __future__ import annotations
 
 import numpy as np

@@ -5,7 +5,7 @@ instances across machines over IP multicast and aggregates frame statistics
 at the master (SIMULATION/ETH_TRANSPORT/emu_transport.c, multicast_link.c;
 launch_sim.sh PBS sweeps). Here the Monte-Carlo trial batch is sharded over
 the mesh's "ue" axis and the error/trial accumulators are reduced with
-`psum` over ICI — the collective replaces the multicast ethernet.
+`psum` over the device interconnect — the collective replaces the multicast ethernet.
 
 Determinism: trial keys are host-constructed (utils/rng.py) from
 (seed, global trial index), so the sharded run is bit-identical to the
@@ -18,7 +18,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P, NamedSharding
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..utils.rng import host_keys
 
@@ -39,13 +39,13 @@ class ShardedSweep:
             if isinstance(ok, tuple):
                 ok = ok[0]
             err = jnp.sum(~ok).astype(jnp.int32)
-            # global reduction over the mesh — rides ICI, not host code
+            # global reduction over the mesh — rides NVLink, not host code
             return jax.lax.psum(err, "ue")
 
         self._step = jax.jit(shard_map(
             sharded, mesh=mesh,
             in_specs=(P("ue"), P()),
-            out_specs=P(), check_rep=False))
+            out_specs=P(), check_vma=False))
 
     def run_snr(self, snr_db: float, n_frames: int, seed: int = 0):
         n0 = jnp.float32(10.0 ** (-snr_db / 10.0))

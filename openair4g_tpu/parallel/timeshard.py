@@ -19,7 +19,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..phy.sync import pss_time_replica
 
@@ -70,4 +70,4 @@ def sharded_pss_correlate(mesh: Mesh, n_fft: int, block_len: int):
 
     return jax.jit(shard_map(
         kernel, mesh=mesh, in_specs=P(None, "t"),
-        out_specs=(P(), P(), P()), check_rep=False))
+        out_specs=(P(), P(), P()), check_vma=False))

@@ -4,7 +4,7 @@ Reference parity: openair1/PHY/LTE_TRANSPORT/dlsch_demodulation.c:801
 (dlsch_channel_compensation: matched filter y*conj(h) with channel-magnitude
 LLR scaling, MRC :2583) and LTE_ESTIMATION/freq_equalization.c (UL MMSE LUT).
 
-TPU-native: per-RE ZF with exact effective-noise tracking — equivalent to the
+Per-RE ZF with exact effective-noise tracking — equivalent to the
 reference's MF + ch_mag LLR scaling but in one normalized form:
     x_hat = y * conj(H) / |H|^2,   N0_eff = N0 / |H|^2
 feeding the exact max-log demapper (ops/llr.py). MRC across RX antennas sums

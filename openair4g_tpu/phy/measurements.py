@@ -5,7 +5,7 @@ Reference parity: openair1/PHY/LTE_ESTIMATION/lte_ue_measurements.c
 N_RB*RSRP/RSSI, N0 from non-pilot energy, wideband/subband CQI) and
 lte_eNB_measurements.c (UL power/interference).
 
-TPU-native: every measurement is a masked reduction over the resource grid,
+Every measurement is a masked reduction over the resource grid,
 batched over trials; under a mesh these become psum'd statistics
 (SURVEY.md §2.13 N17).
 """

@@ -7,10 +7,10 @@ dlsch_dual_stream_correlation :2477 (rho for interference-aware LLRs),
 dlsch_detection_mrc :2583; dlsch_llr_computation.c's nine dual-stream
 variants (qam16_qam16 ... qam64_qam64 :983-8401).
 
-TPU-native: the reference hand-writes one SIMD kernel per (Qm0, Qm1)
+The reference hand-writes one SIMD kernel per (Qm0, Qm1)
 pair. Here ONE parameterized routine covers all pairs: the exact max-log
 bit LLR marginalizing the interfering layer is a max-reduction over the
-joint constellation table [2^Qm0 * 2^Qm1] — an einsum + max on the VPU,
+joint constellation table [2^Qm0 * 2^Qm1] — an einsum + max as elementwise work,
 identical math for every modulation pair. The per-RE 2x2 MMSE-IRC solve
 is closed-form (no linalg.inv), everything batched over REs.
 """

@@ -3,7 +3,7 @@
 Reference parity: openair1/PHY/MODULATION/ofdm_mod.c:85 (PHY_ofdm_mod — IDFT
 per symbol + cyclic prefix) and MODULATION/slot_fep.c:37 (CP removal + DFT).
 
-TPU-native: unitary FFTs batched over (batch, symbol) via XLA's fft — the
+Unitary FFTs batched over (batch, symbol) via XLA's fft — the
 per-RE signal/noise calibration is exact under the unitary convention (time
 power == frequency power). CP add/remove are static slices/concats. Pallas
 DFT kernels can swap in underneath without changing this interface.
@@ -41,7 +41,7 @@ def ofdm_modulate(grid, fp: FrameParms):
 
 def ofdm_modulate_host(grid: np.ndarray, fp: FrameParms) -> np.ndarray:
     """Host (numpy) version of ofdm_modulate, for config-time waveform
-    precomputes (eager jnp ops are not supported on all TPU runtimes)."""
+    precomputes."""
     x = np.fft.ifft(grid, axis=-1, norm="ortho")
     cps = _cp_lengths(fp)
     parts = []

@@ -5,7 +5,7 @@ CRC16 masked by the antenna-count mask, tail-biting CC encode, rate match to
 1920, QPSK, 4-frame spread; rx_pbch :876 — Viterbi decode with blind
 antenna/phase trials) and 36.212 §5.3.1 / 36.211 §6.6.
 
-TPU-native: all four frame-phase hypotheses x antenna masks are decoded as
+All four frame-phase hypotheses x antenna masks are decoded as
 one batched Viterbi call (hypotheses ride the batch axis); CRC16 selects the
 winner — the reference's sequential blind loop becomes a single wide decode.
 """

@@ -7,7 +7,7 @@ pcfich.c (CFI encode/decode, 36.212 §5.3.4 codewords); 36.212 §5.3.3 (DCI:
 CRC16 masked by RNTI, tail-biting CC, rate matching to 72·L bits) and
 36.211 §6.8 (CCE = 9 REGs = 36 REs, QPSK).
 
-TPU-native: the blind search decodes ALL candidate (L, CCE-offset) hypotheses
+The blind search decodes ALL candidate (L, CCE-offset) hypotheses
 as one batched Viterbi call — hypotheses are rows of a single [B·n_hyp, ...]
 decode, the RNTI-masked CRC picks winners. The reference's nested loops over
 search spaces become one gather + one wide decode.

@@ -6,7 +6,7 @@ Reference parity:
   - RX: dlsch_decoding.c:164 (rate-dematch + HARQ soft combine -> turbo
     decode with CRC early stop -> TB reassembly)
 
-TPU-native: everything is batched over the leading trial/UE axis; the
+Everything is batched over the leading trial/UE axis; the
 per-code-block structure (C, K+/K-, E_r, filler) is static per configuration,
 so the block loop unrolls at trace time and blocks of equal K decode as one
 stacked call into the windowed turbo decoder.
@@ -34,11 +34,8 @@ class DlschConfig:
     n_pdcch_symbols: int = 1
     rv: int = 0
     n_turbo_iter: int = 8
-    decoder_window: int | None = None   # None = auto: 240 on accelerators
-    #   (fewer window boundaries amortize the warm-up; +4% flagship,
-    #   measured r5), 96 on CPU (the wide kernel's scan compiles/runs
-    #   slowly under XLA-CPU). BLER is never worse with a larger window.
-    decoder_warmup: int = 24
+    decoder_window: int | None = None   # None: ops/decoder_settings.py
+    decoder_warmup: int | None = None
     nports: int = 1            # TX antenna ports (2 => SFBC, 8 RE/RB pilots)
     g_override: int | None = None   # custom RE budget (PMCH/MBSFN region)
 
@@ -175,12 +172,9 @@ class DlschCodec:
         for (K, F), rs in by_plan.items():
             stacked = jnp.concatenate([d_llrs[r] for r in rs], axis=0)
             kind = "crc24b" if seg.C > 1 else "crc24a"
-            win = cfg.decoder_window
-            if win is None:
-                import jax as _jax
-                win = 96 if _jax.default_backend() == "cpu" else 240
             dcfg = turbo.TurboDecoderConfig(
-                K=K, F=F, n_iter=cfg.n_turbo_iter, window=win,
+                K=K, F=F, n_iter=cfg.n_turbo_iter,
+                window=cfg.decoder_window,
                 warmup=cfg.decoder_warmup, crc_kind=kind,
                 dynamic_stop=dynamic_stop)
             bits, ok = turbo.turbo_decode(stacked, dcfg)

@@ -5,7 +5,7 @@ rx_phich — BPSK HI repeated 3x, spread by length-4 orthogonal sequences
 (8 sequences: 4 Walsh x {1,j}), groups of 8 UEs share 3 REGs; REG positions
 from the PHICH resource allocation in frame parms).
 
-TPU-native: a PHICH group is a [3, 4] complex tensor (3 REGs x 4 REs);
+A PHICH group is a [3, 4] complex tensor (3 REGs x 4 REs);
 TX/RX of all 8 sequences in a group is one small einsum, batched over
 groups and trials.
 """

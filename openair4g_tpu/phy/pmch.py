@@ -6,7 +6,7 @@ MBSFN RE allocation skipping the dense MBSFN RS), LTE_REFSIG/lte_gold_mbsfn.c
 and lte_dl_mbsfn.c (MBSFN reference signals on antenna port 4),
 MODULATION/slot_fep_mbsfn.c (extended-CP front end).
 
-TPU-native: the MBSFN subframe is one static grid map like the PDSCH maps;
+The MBSFN subframe is one static grid map like the PDSCH maps;
 the denser RS comb (spacing 2) makes channel estimation a plain per-RE LS +
 delay-domain smoothing matmul — the long MBSFN composite channel (multiple
 cells transmitting the same waveform at different delays) stays within the

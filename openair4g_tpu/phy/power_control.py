@@ -6,7 +6,7 @@ pucch_power_cntl — open-loop terms + accumulated TPC state) and
 srs_pc / PRACH ramping in phy_procedures_lte_ue.c:1357-1460.
 
 Pure host-side arithmetic (dBm); these feed the simulators' per-UE gain
-scalars — on TPU the resulting amplitude is just a per-batch multiplier.
+scalars — on the device the resulting amplitude is a per-batch multiplier.
 """
 from __future__ import annotations
 

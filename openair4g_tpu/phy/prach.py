@@ -8,11 +8,11 @@ preamble format CP/sequence timing (generate_prach :820-940 Ncp/prach_len
 switch), time-domain generation through the big IDFT (:901-996) and
 sample-stream detection in rx_prach (:1061).
 
-TPU-native: the reference hand-writes 1536..24576-pt SIMD FFTs because its
+The reference hand-writes 1536..24576-pt SIMD FFTs because its
 PRACH transform sizes are odd multiples of 3. Here both directions of the
 time<->839-bin mapping are ONE complex matmul against an on-device phasor
 matrix built from iota (E[t,m] = exp(2pi j (k0+m) t / N), unitary pair) —
-an 839xN systolic pass on the MXU, no Bluestein, no power-of-2 padding.
+an 839xN systolic pass, no Bluestein, no power-of-2 padding.
 RE-level detection (the fast path for link sims) stays a single
 [B,839]x[839,839] matmul.
 """
@@ -217,7 +217,7 @@ def prach_detect(rx_freq, u: int, ncs: int, threshold: float = 15.0,
     ROC-calibrated by scripts/prach_roc.py (sim/prachsim.py `roc`):
     false-alarm < 1e-3/occasion with detection >= 99% at -6 dB/bin.
 
-    corr(n) = IDFT(rx .* conj(X_u)) — one MXU matmul; preamble v owns the
+    corr(n) = IDFT(rx .* conj(X_u)) — one matmul; preamble v owns the
     cyclic-shift window [C_v, C_v + ncs).
     """
     win_len = ncs if ncs else n_zc          # N_CS=0: whole-root window

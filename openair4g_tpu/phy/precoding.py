@@ -6,7 +6,7 @@ dlsch_demodulation.c:1273-1443 (PMI precoder recombination at the UE —
 the receiver forms the *effective* channel H·W before detection, which is
 exactly how it is computed here).
 
-TPU-native: precoding is a tiny einsum over the layer axis with a per-RE
+Precoding is a tiny einsum over the layer axis with a per-RE
 precoder tensor [N, P, L]; TM3's large-delay CDD alternates a static pair
 of matrices (period = n_layers), so the whole subframe's precoders are one
 gathered constant — no per-RE control flow.

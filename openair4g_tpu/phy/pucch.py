@@ -5,10 +5,10 @@ ZC base + per-symbol cyclic shift alpha from ncs_cell :67, W4/W3 orthogonal
 covers :105-119, BPSK/QPSK payload d0 :303-318; rx_pucch :433) and 36.212
 §5.2.3.3 (the (20, A) block code for format 2).
 
-TPU-native: one PUCCH transmission is a tiny [n_sym, 12] tensor; everything
+One PUCCH transmission is a tiny [n_sym, 12] tensor; everything
 (covers, shifts, RS) is precomputed numpy, detection is batched conjugate
 correlation. Format-2 ML decoding correlates LLRs against all 2^A codewords
-with a single [B, 20] x [20, 2^A] matmul (MXU), replacing the reference's
+with a single [B, 20] x [20, 2^A] matmul, replacing the reference's
 per-codeword loop.
 """
 from __future__ import annotations

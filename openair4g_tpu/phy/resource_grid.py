@@ -135,9 +135,8 @@ def make_grid_map(n_rb: int, n_pdcch: int, n_id_cell: int = 0,
 
 def _fill_gather_idx(gm: GridMap, with_pilots: bool) -> np.ndarray:
     """[nsym*n_fft] source indices into concat([data, pilots, zero]):
-    grid construction as ONE static gather instead of two scatters (TPU
-    scatters lower poorly; the take is ~25% cheaper on the 100-PRB
-    chain). The index array is cached ON the GridMap instance (ADVICE r4:
+    grid construction as ONE static gather instead of two scatters. The
+    index array is cached ON the GridMap instance (ADVICE r4:
     an id()-keyed global dict can serve stale indices if a map is
     garbage-collected and another allocates at the same address)."""
     cache = gm.__dict__.get("_fill_idx")

@@ -7,8 +7,8 @@ Reference parity:
   - RE map: ulsch_modulation.c:376 (data symbols, DMRS on slot symbol 3).
   - 7.5 kHz half-subcarrier shift: MODULATION/ul_7_5_kHz.c:45/152.
 
-TPU-native: the M_sc-point DFT/IDFT is a precomputed unitary DFT matrix
-matmul [.., M] x [M, M] — MXU work, one code path for every 2^a*3^b*5^c
+The M_sc-point DFT/IDFT is a precomputed unitary DFT matrix
+matmul [.., M] x [M, M] — matmul work, one code path for every 2^a*3^b*5^c
 size (the reference needs a 16k-line mixed-radix kernel zoo for these).
 The channel interleaver (36.212 §5.2.2.8, data-only case) is a static
 permutation fused into the symbol->grid gather.
@@ -19,6 +19,7 @@ import functools
 from dataclasses import dataclass
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from ..config import FrameParms
@@ -33,14 +34,17 @@ def _dft_mat(m: int) -> np.ndarray:
 
 def transform_precode(x):
     """Unitary M-point DFT along the last axis (DFT-spread OFDM)."""
+    # HIGHEST: the float32 DFT matmul must not run in TF32 on a GPU
     return jnp.matmul(x, jnp.asarray(_dft_mat(x.shape[-1])),
-                      preferred_element_type=jnp.complex64)
+                      preferred_element_type=jnp.complex64,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def transform_deprecode(x):
     """Unitary M-point IDFT along the last axis (despread)."""
     return jnp.matmul(x, jnp.asarray(_dft_mat(x.shape[-1]).conj().T),
-                      preferred_element_type=jnp.complex64)
+                      preferred_element_type=jnp.complex64,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def dmrs_symbol_indices(fp: FrameParms) -> tuple:

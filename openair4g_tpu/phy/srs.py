@@ -6,9 +6,9 @@ Reference parity: openair1/PHY/LTE_TRANSPORT/srs_modulation.c:396
 last SC-FDMA symbol of the subframe) and the eNB-side wideband channel/
 timing estimate it feeds (lte_eNB_measurements / srs channel estimates).
 
-TPU-native: the SRS is one static frequency-domain row; sounding N UEs on
+The SRS is one static frequency-domain row; sounding N UEs on
 the two combs x 8 cyclic shifts is a batched conjugate-multiply + delay-
-domain IDFT (matmul) — the same math as PRACH detection, reusing the MXU.
+domain IDFT (matmul) — the same math as PRACH detection.
 """
 from __future__ import annotations
 

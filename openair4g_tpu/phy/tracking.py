@@ -6,7 +6,7 @@ nudging rx_offset), adjust_gain.c (phy_adjust_gain — RSSI-driven gain
 target), lte_est_freq_offset.c (phase of the cross-correlation of channel
 estimates between pilot symbols).
 
-TPU-native: all three are small reductions over tensors the receiver
+All three are small reductions over tensors the receiver
 already has (channel estimates / received grids), batched over trials.
 """
 from __future__ import annotations

@@ -7,7 +7,7 @@ TM7 path of dlsch_modulation.c (data and DMRS transmitted through the same
 arbitrary beamforming vector, so the UE estimates the *effective* beamformed
 channel directly from port 5 — no codebook).
 
-TPU-native: the RS lattice is one static map per allocation; beamforming is
+The RS lattice is one static map per allocation; beamforming is
 an outer product with the beam vector; channel estimation is LS at the RS
 comb + the same delay-domain LMMSE smoother as the cell-specific path.
 """
@@ -170,7 +170,7 @@ def _uespec_wiener(n_rb: int, n_prb: int, n0: float,
 # 7/8 are declared in its DCI/RRC tables (openair1/PHY/impl_defs_lte.h
 # transmission-mode enums) but the modulation path stops at TM7 (port 5,
 # dlsch_modulation.c:1181). This module completes the capability the
-# reference names, built TPU-native like the TM7 path above.
+# reference names, built like the TM7 path above.
 
 TM8_RS_SYMS = (5, 6, 12, 13)
 TM8_SC_OFFS = (1, 6, 11)            # per-PRB DM-RS subcarrier offsets

@@ -1,4 +1,4 @@
-// oairt — native runtime for the TPU LTE PHY framework.
+// oairt — native runtime for the JAX LTE PHY framework.
 //
 // Reference parity (behavior, not code):
 //   * SPSC IQ ring buffer  <- the openair0 device sample stream / RRH

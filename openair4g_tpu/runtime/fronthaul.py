@@ -8,7 +8,7 @@ subframe n at rx_ts + N*samples_per_tti so the hardware has lead time)
 and the ETHERNET RRH split (targets/ARCH/ETHERNET, rrh_gw.c — raw IQ
 between the radio head and the baseband unit over a transport link).
 
-TPU-native shape: the "transport link" is the native C++ SPSC ring
+Shape: the "transport link" is the native C++ SPSC ring
 (runtime/csrc/oairt.cc) carrying framed [timestamp | complex64 samples]
 blocks — the shared-memory analog of the RRH ethernet stream; the sample
 clock is modeled (monotonic counter advanced by reads), and TX writes

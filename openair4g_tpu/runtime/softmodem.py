@@ -8,7 +8,7 @@ budget. Here: IQ subframes stream through the native SPSC ring buffer
 with deadline accounting, and the worker callback feeds the batched jitted
 PHY receiver. ITTI-style MessageQueues carry results to a consumer task.
 
-The TPU angle: the callback only *enqueues* device work (jit dispatch is
+The device angle: the callback only *enqueues* device work (jit dispatch is
 async), so the pipeline overlaps host IO with device compute exactly like
 the reference overlaps DMA with DSP.
 """

@@ -6,7 +6,7 @@ Reference parity: openair1/SCHED/phy_procedures_lte_eNb.c:3207
 ulsch_decoding, rx_pucch, SRS estimates), process_HARQ_feedback :2658 and
 the UE-drop rule after ULSCH_max_consecutive_errors :1415-1422.
 
-TPU-native: the whole uplink subframe of a batch of cells/trials is one
+The whole uplink subframe of a batch of cells/trials is one
 grid; each channel's receiver is a static-gather + batched kernel; HARQ
 state (round counters, consecutive-error drop) is small host bookkeeping
 exactly like the reference's eNB structs.

@@ -4,7 +4,7 @@ Reference parity: openair1/SCHED/phy_procedures_lte_eNb.c:1372
 (phy_procedures_eNB_TX — per subframe: PSS/SSS/pilots/PBCH, DCIs via
 generate_dci_top, PDSCH encode->scramble->modulate, PHICH; then OFDM mod).
 
-TPU-native: every channel's RE coordinates and static symbol values are
+Every channel's RE coordinates and static symbol values are
 host-precomputed once per cell config; building a subframe for a batch of
 trials is a handful of scatters into the [B, 14, n_fft] grid followed by
 one batched IFFT — there is no per-RE control flow on device.

@@ -5,7 +5,7 @@ Reference parity: openair1/SCHED/phy_procedures_lte_ue.c:2398
 PCFICH -> CFI, PDCCH blind DCI search, rx_pdsch + dlsch_decoding, PHICH,
 ACK/NACK generation).
 
-TPU-native: one function from the received [B, nsym, n_fft] grid to
+One function from the received [B, nsym, n_fft] grid to
 decoded TB + control decisions, entirely jit-compatible; the DCI gating
 (a missed DCI voids the PDSCH attempt — dlsim errs[0] semantics,
 dlsim.c:3011-3023) is a boolean mask, not control flow.
@@ -109,8 +109,7 @@ class UeRx:
         meas = measure(rgrid, self.gm, H_hat=H)
 
         def eq_llr(sym_idx, bin_idx, sc_idx):
-            # fused compensation+equalize+demap (ops/equalize_llr):
-            # one VMEM pass on accelerators, XLA oracle on CPU
+            # fused compensation+equalize+demap (ops/equalize_llr)
             y = rgrid[:, jnp.asarray(sym_idx), jnp.asarray(bin_idx)]
             h = H[:, jnp.asarray(sym_idx), jnp.asarray(sc_idx)]
             return mrc_llr(y[..., None], h[..., None], n0,

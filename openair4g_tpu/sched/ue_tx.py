@@ -5,7 +5,7 @@ Reference parity: openair1/SCHED/phy_procedures_lte_ue.c:649
 ulsch_encoding + ulsch_modulation :931-996, PRACH trigger :1357-1460,
 open-loop power control).
 
-TPU-native: one [B, nsym, n_fft] grid per subframe; PUSCH/PUCCH/SRS are
+One [B, nsym, n_fft] grid per subframe; PUSCH/PUCCH/SRS are
 scatters from host-precomputed maps; power control scales amplitudes per
 batch element.
 """

@@ -13,7 +13,7 @@ Reference parity: openair1/SIMULATION/TOOLS/random_channel.c —
   * AR(1) forgetting-factor fade :939-955,
 and multipath_channel.c:152 (time-domain convolution).
 
-TPU-native design: instead of sinc-interpolating taps onto a FIR and
+Design: instead of sinc-interpolating taps onto a FIR and
 convolving in time (O(L*N) per subframe), the channel is applied **in the
 frequency domain**: under the cyclic prefix a time-invariant multipath
 channel is exactly a per-subcarrier complex gain

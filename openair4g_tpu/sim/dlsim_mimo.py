@@ -30,8 +30,7 @@ from ..phy.dci_formats import pack_dci_format1, n_rbg
 from ..phy import ofdm
 from .channels import ChannelModel, apply_channel_grid
 from ..ops.gold import gold_sequence, pdsch_cinit, scramble_bits, unscramble_llrs
-from ..ops.llr import map_symbols
-from ..ops.equalize_llr import demap_llr_fused
+from ..ops.llr import map_symbols, demap_llr
 
 
 @dataclass(frozen=True)
@@ -184,7 +183,7 @@ class DlsimTxDiv:
             xc, n0c = sfbc_combine(jnp.stack(yp, axis=1),
                                    jnp.stack(hp0, axis=1),
                                    jnp.stack(hp1, axis=1), n0)
-            llr_c = demap_llr_fused(xc, n0c, 2).reshape(B, -1)
+            llr_c = demap_llr(xc, n0c, 2).reshape(B, -1)
             sgn = jnp.asarray(
                 1.0 - 2.0 * self.pdcch_scr.astype(np.float32))
             dfound, dbits, _ = dci_blind_decode(
@@ -197,7 +196,7 @@ class DlsimTxDiv:
             dci_ok = jnp.ones(B, bool)
 
         x_hat, n0_eff = sfbc_combine(y, h0, h1, n0)
-        llr = demap_llr_fused(x_hat, n0_eff, Qm).reshape(B, -1)
+        llr = demap_llr(x_hat, n0_eff, Qm).reshape(B, -1)
         llr = unscramble_llrs(llr, self.scr_seq)
         tb_hat, tb_ok, _ = codec.decode(llr)
         bit_errs = jnp.sum(jnp.abs(tb_hat - tb), axis=1)

@@ -6,7 +6,7 @@ dlsch_demodulation.c TM3 compensation :1846, TM5/6 PMI recombination
 :1273-1466, dual-stream correlation :2477 and the interference-aware LLR
 family of dlsch_llr_computation.c.
 
-TPU-native: the per-RE precoder is a static tensor folded into one einsum;
+The per-RE precoder is a static tensor folded into one einsum;
 detection is the closed-form MMSE-IRC of phy/mimo_rx.py; TM5's
 interference-aware LLRs marginalize the co-scheduled UE's constellation
 exactly (one parameterized kernel instead of the reference's nine).
@@ -43,8 +43,7 @@ from ..phy.dci_formats import (pack_dci_format2a, pack_dci_format2,
                                n_rbg)
 from ..ops.gold import gold_sequence, pdsch_cinit, scramble_bits, \
     unscramble_llrs
-from ..ops.llr import map_symbols
-from ..ops.equalize_llr import demap_llr_fused
+from ..ops.llr import map_symbols, demap_llr
 
 
 @dataclass(frozen=True)
@@ -181,7 +180,7 @@ class DlsimSm:
         y = rgrids[:, :, sym, b]                       # [B, R, Npd]
         x_hat, n0_eff = sfbc_combine(y, H_ports[..., 0], H_ports[..., 1],
                                      n0)
-        llr = demap_llr_fused(x_hat, n0_eff, 2).reshape(y.shape[0], -1)
+        llr = demap_llr(x_hat, n0_eff, 2).reshape(y.shape[0], -1)
         sgn = jnp.asarray(1.0 - 2.0 * self.pdcch_scr.astype(np.float32))
         found, bits, _ = dci_blind_decode(llr * sgn, len(self.dci_payload),
                                           self.cfg.rnti, self.dci_cands)
@@ -285,7 +284,7 @@ class DlsimSm:
             He = effective_channel(H, self.W)                 # [B, N, R, 2]
             x_hat, n0_eff = mmse_detect(y, He, n0)
             for q, codec in enumerate(self.codecs):
-                llr = demap_llr_fused(x_hat[..., q], n0_eff[..., q],
+                llr = demap_llr(x_hat[..., q], n0_eff[..., q],
                                 codec.cfg.Qm).reshape(B, -1)
                 llr = unscramble_llrs(llr, self.scr_seqs[q])
                 tb_hat, ok, _ = codec.decode(llr)
@@ -312,8 +311,8 @@ class DlsimSm:
                     extra = jnp.abs(jnp.sum(jnp.conj(he0) * hei, -1)
                                     ) ** 2 / g
                 n0_eff = (n0 * g + extra) / (g * g)
-                llr = demap_llr_fused(z / g, n0_eff,
-                                      codec.cfg.Qm).reshape(B, -1)
+                llr = demap_llr(z / g, n0_eff,
+                                codec.cfg.Qm).reshape(B, -1)
             llr = unscramble_llrs(llr, self.scr_seqs[0])
             tb_hat, ok, _ = codec.decode(llr)
             oks.append(ok)

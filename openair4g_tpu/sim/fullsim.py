@@ -10,7 +10,7 @@ phy_procedures_lte_ue.c:2398); a missed DCI voids the TB exactly like
 dlsim's errs[0] accounting (dlsim.c:3011-3023). Cold start (PSS/SSS/PBCH
 from a timing-offset capture) mirrors initial_sync.c:274.
 
-TPU-native: one jitted trial step per HARQ round batched over trials;
+One jitted trial step per HARQ round batched over trials;
 HARQ keeps per-block soft buffers across rounds (donated carries).
 """
 from __future__ import annotations

@@ -5,7 +5,7 @@ an extended-CP MBSFN subframe, MBSFN composite channel (several cells
 transmitting the identical waveform at different delays), UE RX with MBSFN
 RS channel estimation and MCH turbo decode.
 
-TPU-native: the multi-cell single-frequency composite is an exact per-
+The multi-cell single-frequency composite is an exact per-
 subcarrier sum of delayed channel responses (each delay < extended CP), so
 the whole SFN effect is one complex gain vector per trial.
 """

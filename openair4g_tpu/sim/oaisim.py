@@ -11,7 +11,7 @@ plus OMG-style mobility (random walk) and OTG-style traffic (full buffer /
 on-off), and a round-robin MAC allocator standing in for
 eNB_dlsch_ulsch_scheduler.
 
-TPU-native: the UE axis is the batch axis. One jitted TTI step advances
+The UE axis is the batch axis. One jitted TTI step advances
 every UE of every cell at once: per-link Doppler-evolved channel taps ride
 a [n_ue, n_enb] tensor, SINR/EESM/BLER-draw are elementwise, and the full
 PHY mode vmaps the complete receiver over UEs. Mobility/scheduling are

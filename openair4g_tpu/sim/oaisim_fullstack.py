@@ -20,7 +20,7 @@ UEs climbing the whole ladder concurrently through one MAC, with
 preamble collisions, per-UE AS security, and RLC-AM recovery under MAC
 transport-block loss.
 
-TPU note: the protocol stack is host bytework by nature (as in the
+Note: the protocol stack is host bytework by nature (as in the
 reference); the abstraction BLER machinery it draws from is the same
 calibrated EESM/BLER-table stack the device-mode oaisim uses.
 """

@@ -5,7 +5,7 @@ adc.c / dac.c (quantization to B bits), and dlsim's IQ-imbalance injection
 (`iqim` term on the Q rail, dlsim.c:2858-2866).
 
 All impairments are elementwise maps over the time-domain waveform,
-batched over trials on the VPU.
+batched over trials as elementwise work.
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ reference's ulsim uses a static grant; this harness closes the loop the
 softmodem way. A missed/corrupted grant means the UE stays silent that
 TTI — counted like dlsim's DCI-error column (dlsim.c:3011-3023).
 
-TPU-native: the grant that the eNB issues is static per config, so all
+The grant that the eNB issues is static per config, so all
 RE maps stay shape-static under jit; the UE's *acceptance* of the grant
 (blind-decode success + payload match) is a per-trial boolean that gates
 its transmit waveform — the data-dependent part is a mask, not a shape.

@@ -6,7 +6,7 @@ with transform precoding + DMRS) -> multipath/AWGN channel -> eNB RX
 (channel estimation, MMSE frequency equalization, despread, LLR, control
 demultiplex, turbo decode) with HARQ.
 
-TPU-native: one jitted trial step batched over trials; the channel is a
+One jitted trial step batched over trials; the channel is a
 per-subcarrier complex gain (exact under CP); BLER statistics accumulate
 per HARQ round exactly like sim/dlsim.py. CQI/RI/ACK riding on PUSCH
 (ops/uci.py) are multiplexed via static scatter maps and their round-0

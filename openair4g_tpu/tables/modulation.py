@@ -2,7 +2,7 @@
 
 The reference uses Q15 fixed-point amplitude tables
 (openair1/PHY/LTE_REFSIG/mod_table.h:34); here constellations are unit-energy
-float32 — the TPU pipeline is floating point throughout, with BLER (not
+float32 — the pipeline is floating point throughout, with BLER (not
 bit-exactness) as the fidelity contract.
 
 Bit-to-symbol convention (36.211 §7.1): for Qm bits b0..b{Qm-1} per symbol,

@@ -5,7 +5,7 @@ start_meas/stop_meas, rdtsc cycle counters, mean+std over trials) and
 print_meas / print_stats.c. The simulators print the same per-stage table
 at exit (dlsim.c:3266+, ulsim.c:1605).
 
-On TPU, a stage is a jitted program: timing = wall clock around
+On the device, a stage is a jitted program: timing = wall clock around
 block_until_ready (includes dispatch; amortized over the batch). Enabled
 globally like the reference's `opp_enabled` flag. For kernel-level detail,
 use jax.profiler traces (Perfetto) — this is the cheap always-on layer.

@@ -1,4 +1,4 @@
-"""Execution-timeline tracing — the VCD signal dumper's TPU equivalent.
+"""Execution-timeline tracing — the VCD signal dumper's equivalent.
 
 Reference parity: openair2/UTIL/LOG/vcd_signal_dumper.c:274-470 (function
 enter/exit events through a lock-free FIFO to a GTKWave VCD file, enabled

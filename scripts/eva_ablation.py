@@ -10,6 +10,9 @@ script reruns the corpus round-0 points with delay_scale=0.651 (and the
 true 1.0 for reference), plus perfect-CE variants on test 6 to separate
 estimation loss from channel statistics.
 
+One subprocess per case, one at a time: the parent process never imports
+JAX, so each child has the card to itself (one JAX process per card).
+
 Usage: python scripts/eva_ablation.py [n_trials] [out.json] [only_case]
 """
 import json
@@ -20,8 +23,6 @@ import time
 sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
-
-from openair4g_tpu.sim.dlsim import DlsimFading, DlsimFadingConfig
 
 REF_SCALE = 0.6510416667          # BW/f_s, identical at all LTE bandwidths
 
@@ -93,6 +94,7 @@ def main():
             json.dump(results, f, indent=1)
         print("wrote", out_path)
         return
+    from openair4g_tpu.sim.dlsim import DlsimFading, DlsimFadingConfig
     for name, mcs, n_rb, c, chan, snr, scale, pce, ref, extra in CASES:
         if name != only:
             continue

@@ -1,9 +1,9 @@
 """Real 2-process jax.distributed run over localhost (CPU backend):
-the DCN path the multi-host design rides — gRPC coordination service,
+the network path the multi-host design rides — gRPC coordination service,
 jax.make_array_from_process_local_data per-process key slices, psum'd
 accumulators — executed for real, and asserted bit-identical to the
 single-process run with the same global batch (SURVEY.md §4's multi-host
-requirement; VERDICT round-1 item 7).
+requirement).
 """
 import json
 import os
